@@ -1,6 +1,6 @@
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-"""Basic emulated-FP64 GEMM on TPU: modes, accuracy, BLAS epilogue."""
+"""Basic emulated-FP64 GEMM: modes, accuracy, BLAS epilogue."""
 import numpy as np
 import jax
 

@@ -26,6 +26,6 @@ oz.disable_profiling(h)
 #    OZIMMU_ENABLE_CULIP_PROFILING=1 prints one line per intercepted call
 
 # 3. deep kernel timeline -> TensorBoard/Perfetto
-with oz.device_trace("/tmp/oz_trace"):
+with oz.device_trace("oz_trace"):
     oz.matmul(a, b, mode="fp64_int8_9")
-print("trace written to /tmp/oz_trace")
+print("trace written to ./oz_trace")

@@ -2,8 +2,8 @@
 FP64 GEMM (the reference paper's motivating HPC workload).
 
 Solve A x = b by factorizing in fast low precision (f32) and driving
-the error down with residuals computed in exact emulated f64 on the int8
-MXU — each refinement step gains ~p_low digits until f64-level accuracy.
+the error down with residuals computed in emulated f64 on the int8
+engine — each refinement step gains ~p_low digits until f64-level accuracy.
 """
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -31,8 +31,8 @@ x = solve_f32(b)
 print("it  0: rel f32 solve error:", la.norm(x - x_true) / la.norm(x_true))
 
 for it in range(1, 6):
-    # residual in EXACT emulated f64 on the int8 engine — the step that
-    # needs true f64 GEMM and that TPUs cannot do natively
+    # residual in emulated f64 on the int8 engine — the step that needs
+    # f64-accurate GEMM
     r = b - oz.matmul(A, x, mode="fp64_int8_9")
     x = x + solve_f32(r)
     err = la.norm(x - x_true) / la.norm(x_true)

@@ -3,8 +3,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 """The in-jit functional API: engine calls inside YOUR jitted code.
 
 No global interception, no host round-trips — traced.gemm composes like
-any other jax op.  On TPU this is strictly more accurate than XLA's
-emulated-f64 matmul; on CPU it is bit-identical to the host API.
+any other jax op, and is bit-identical to the host API.
 """
 import numpy as np
 import jax

@@ -1,10 +1,11 @@
 """Multi-process (multi-host) sharded DGEMM demo.
 
-On a real TPU pod, each host just runs:
+On a real cluster, each host runs (with OZIMMU_COORDINATOR,
+OZIMMU_NUM_PROCS and OZIMMU_PROC_ID exported):
 
     from ozimmu_tpu.parallel import launch
-    launch.initialize()                 # auto-detects the pod topology
-    mesh = launch.make_mesh_2d_hybrid() # DCN blocks outer, ICI inner
+    launch.initialize()
+    mesh = launch.make_mesh_2d_hybrid() # one device block per process
     ... sharded_gemm(a, b, 9, mesh) ...
 
 For a laptop demo, this script RE-LAUNCHES ITSELF as 2 processes x 4
@@ -66,7 +67,7 @@ def worker(pid: int, nproc: int, port: str):
         replicated_f64x,
     )
 
-    mesh = make_mesh_2d_hybrid()  # (x, y); process blocks outer on x (DCN)
+    mesh = make_mesh_2d_hybrid()  # (x, y); process blocks outer on x
     x, y = mesh.devices.shape
     m, n, k = 16 * x, 16 * y, 512
     rng = np.random.default_rng(0)  # same data on every process

@@ -1,17 +1,13 @@
-"""ozimmu_tpu — TPU-native Ozaki-scheme FP64 GEMM engine.
+"""ozimmu_tpu — Ozaki-scheme FP64 GEMM engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-enp1s0/ozIMMU (CUDA): FP64 (D/Z) GEMM emulated by error-free mantissa
-splitting into 3..18 int8 slices, all-pairs int8 matmuls on the TPU MXU
-with int32 accumulation, and deterministic extended-precision
-recombination — plus auto split-count selection, an FP32 demotion mode, a
-``jnp.dot``/``einsum`` interceptor (replacing the reference's LD_PRELOAD
-shim), and a distributed 2D-sharded path over TPU meshes.
-
-On TPU this engine is not merely faster than "native" FP64 — XLA:TPU has
-no real f64 (it stores/computes a ~49-bit double-float with f32 exponent
-range), so ``fp64_int8_*`` modes are the only way to get true IEEE-f64
-accurate GEMM on the platform at all.
+A JAX/XLA framework with the capabilities of enp1s0/ozIMMU (CUDA): FP64
+(D/Z) GEMM emulated by error-free mantissa splitting into 3..18 int8
+slices, all-pairs int8 matmuls with int32 accumulation (cuBLASLt int8
+tensor-core GEMMs on an NVIDIA GPU), and deterministic extended-precision
+recombination — plus auto split-count selection with a native-DGEMM
+fallback, an FP32 demotion mode, a ``jnp.dot``/``einsum`` interceptor
+(replacing the reference's LD_PRELOAD shim), and a distributed
+2D-sharded path over device meshes.
 
 Quick start::
 

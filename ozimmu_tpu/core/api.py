@@ -1,6 +1,6 @@
 """Public GEMM API: mode dispatch, operand normalization, profiling.
 
-TPU equivalent of ``mtk::ozimmu::gemm`` (reference src/gemm.cu:524-653):
+Equivalent of ``mtk::ozimmu::gemm`` (reference src/gemm.cu:524-653):
 argument validation, per-mode dispatch (int8 engine / auto selection /
 native fallback / f32 demotion), plus the profiling hooks the reference
 wires through its handle.
@@ -23,13 +23,13 @@ import numpy as np
 from ..ops import tf32x3
 from ..ops.mantissa_loss import auto_mode_select as _auto_mode_select_core
 from ..ops.pack import aligned_add, pack_f64x, scalar_triple, unpack_f64x
-from ..ops.recombine import acc_shift, recombine_auto
+from ..ops.recombine import acc_shift, recombine
 from ..ops.split import split_f64x, split_f64x_cols
 from ..schedule import bits_per_int8
 from ..types import ComputeMode, ComputeModeLike, ElementKind, Operation, OperationLike
 from ..utils.log import log
 from ..utils.profiling import culip_timer
-from .f64x import F64X, as_f64x, from_f32
+from .f64x import F64X, as_f64x, from_f32, from_f64, to_f64
 from .gemm import gemm_f64x, zgemm_f64x
 from .handle import Handle, default_handle
 
@@ -50,9 +50,9 @@ def _apply_op_f64x(x: F64X, op: Operation) -> F64X:
 
 
 def _require_x64() -> None:
-    """The engine carries int64 in the pack kernel (emulated as int32
-    pairs on TPU); JAX must run with x64 enabled or the compiler silently
-    truncates to int32 and corrupts results."""
+    """The engine carries int64 in the pack kernel; JAX must run with x64
+    enabled or the compiler silently truncates to int32 and corrupts
+    results."""
     import jax as _jax
 
     if not _jax.config.jax_enable_x64:
@@ -75,9 +75,17 @@ def _check_k_supported(k: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, inline=True)
-def _native_f64_dot(a, b):
-    return jnp.dot(a, b, preferred_element_type=jnp.float64)
+@partial(jax.jit, static_argnums=(2, 3))
+def _native_gemm(a, b, alpha, beta, c=None):
+    """``alpha * a @ b + beta * c`` in the operands' own dtype on device
+    (float64 -> cuBLAS DGEMM, complex128 -> ZGEMM on the GPU); batched
+    [B, m, k] operands are fine too."""
+    r = jnp.matmul(a, b, preferred_element_type=a.dtype)
+    if alpha != 1:
+        r = alpha * r
+    if beta != 0:
+        r = r + beta * c
+    return r
 
 
 @partial(jax.jit, inline=True)
@@ -94,8 +102,8 @@ def _sgemm_core(a: F64X, b: F64X) -> F64X:
     demote operands to f32, matmul in f32, widen the result exactly."""
     a32 = _f64x_to_f32(a)
     b32 = _f64x_to_f32(b)
-    # HIGHEST: full-f32 MXU passes — TPU's default f32 matmul precision is
-    # bf16-grade, which would defeat the point of the demotion mode.
+    # HIGHEST: true f32 products — the GPU's default f32 matmul may run
+    # in TF32, which would defeat the point of the demotion mode.
     c32 = jnp.dot(
         a32, b32, preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST
     )
@@ -146,7 +154,7 @@ def _csgemm_core(
 
 _split_rows = jax.jit(split_f64x, static_argnums=(1, 2))
 _split_cols = jax.jit(split_f64x_cols, static_argnums=(1, 2))
-_recombine_j = jax.jit(recombine_auto, static_argnums=(2, 3, 4))
+_recombine_j = jax.jit(recombine, static_argnums=(2, 3, 4))
 
 
 @partial(jax.jit, static_argnums=(3, 4, 5, 6))
@@ -347,16 +355,15 @@ def gemm(
                 t, E = unpack_f64x(out)
                 out = _epilogue_scalar(t, E, float(alpha), float(beta), cx)
         elif mode_r is ComputeMode.DGEMM:
-            # Native XLA f64 (on TPU: double-float emulation, ~49-bit — the
-            # platform's own "native FP64"; on CPU: true f64).
-            an = jnp.asarray(ax.to_numpy(), dtype=jnp.float64)
-            bn = jnp.asarray(bx.to_numpy(), dtype=jnp.float64)
+            # native IEEE f64 on device (cuBLAS DGEMM on the GPU)
             if beta != 0.0 and cx is None:
                 raise ValueError("beta != 0 requires c")
-            r = _native_f64_dot(an, bn)
-            rn = np.asarray(jax.device_get(r), dtype=np.float64)
-            rn = alpha * rn + (beta * cx.to_numpy().reshape(m, n) if beta != 0.0 else 0.0)
-            out = F64X.from_numpy(rn)
+            out = from_f64(
+                _native_gemm(
+                    to_f64(ax), to_f64(bx), float(alpha), float(beta),
+                    to_f64(cx) if beta != 0.0 else None,
+                )
+            )
         else:
             raise NotImplementedError(f"mode {mode_r} not implemented")
         jax.block_until_ready(out.hi)
@@ -432,9 +439,13 @@ def _gemm_complex_np(handle, a, b, mode_r, op_a, op_b, alpha, beta, c):
             jax.block_until_ready(re.hi)
             out = re.to_numpy().reshape(m, n) + 1j * im.to_numpy().reshape(m, n)
         elif mode_r is ComputeMode.DGEMM:
-            out = complex(alpha) * (a @ b)
-            if beta != 0:
-                out = out + complex(beta) * c
+            # native complex128 product on device (cuBLAS ZGEMM on the GPU)
+            out = np.asarray(
+                _native_gemm(
+                    jnp.asarray(a), jnp.asarray(b), complex(alpha), complex(beta),
+                    jnp.asarray(c, dtype=jnp.complex128) if beta != 0 else None,
+                )
+            )
         elif mode_r is ComputeMode.SGEMM:
             # device-side demotion (reference cublas_helper.cu:123-125):
             # f32 re/im planes, 4 real f32 HIGHEST matmuls, exact widen
@@ -492,10 +503,13 @@ def gemm_batched(
             out = out + beta * c
         return out
     if not mode_r.is_int8:
-        out = np.einsum("bmk,bkn->bmn", a, b) * alpha
-        if beta != 0 and c is not None:
-            out = out + beta * c
-        return out
+        return np.asarray(
+            _native_gemm(
+                jnp.asarray(a, jnp.float64), jnp.asarray(b, jnp.float64),
+                float(alpha), float(beta) if c is not None else 0.0,
+                jnp.asarray(c, jnp.float64) if c is not None else None,
+            )
+        )
     _check_k_supported(a.shape[2])
     ns = mode_r.num_split
 
@@ -557,10 +571,14 @@ def _gemm_batched_complex(a, b, mode_r, alpha, beta, c, handle):
             )
         return re.to_numpy().reshape(B, m, n) + 1j * im.to_numpy().reshape(B, m, n)
     if not mode_r.is_int8:
-        out = np.einsum("bmk,bkn->bmn", a, b) * complex(alpha)
-        if beta != 0 and c is not None:
-            out = out + complex(beta) * c
-        return out
+        with_c = c is not None and complex(beta) != 0
+        return np.asarray(
+            _native_gemm(
+                jnp.asarray(a), jnp.asarray(b), complex(alpha),
+                complex(beta) if with_c else 0j,
+                jnp.asarray(c, jnp.complex128) if with_c else None,
+            )
+        )
     _check_k_supported(k)
     ns = mode_r.num_split
     al, be = complex(alpha), complex(beta)

@@ -1,17 +1,16 @@
-"""Exact float64 carriage for TPU: IEEE-754 bits as two int32 planes.
+"""Exact float64 carriage: IEEE-754 bits as two uint32 planes.
 
-Why this exists: XLA:TPU has no native float64 — ``jnp.float64`` arrays on
-TPU are stored and computed as float32 pairs (~49-bit significand, float32
-exponent range).  Merely *placing* an f64 array on a TPU loses mantissa
-bits and overflows beyond ~1e38.  A faithful FP64 GEMM engine therefore
-cannot touch XLA f64 on device.  ``F64X`` carries the raw IEEE-754 bit
-pattern as two uint32 arrays (hi = sign/exponent/mantissa-high, lo =
-mantissa-low), which every backend stores exactly.  Host conversion is a
-free numpy view; device kernels operate on the bits with native int32 ops.
+``F64X`` carries the raw IEEE-754 bit pattern of a float64 array as two
+uint32 arrays (hi = sign/exponent/mantissa-high, lo = mantissa-low).  The
+engine's split, recombination and epilogue work on these bits with
+integer and float32 operations only, so every backend computes them
+bit-identically; host conversion is a free numpy view and device
+conversion one bitcast (:func:`from_f64` / :func:`to_f64`).
 
-The reference engine has no analogue — CUDA has real f64 — this type is
-the TPU-first answer to the same requirement (exact operand bits feeding
-the split kernel, reference src/split.cu:154-185).
+The reference engine has no analogue — it reads the f64 operands in its
+split kernel directly (reference src/split.cu:154-185).  Removing this
+carriage in favour of int64 bitcasts inside the kernels is open design
+work (ROADMAP D1).
 """
 
 from __future__ import annotations
@@ -89,8 +88,7 @@ def as_f64x(x) -> F64X:
         return F64X.from_numpy(x)
     if isinstance(x, jax.Array):
         if x.dtype == jnp.float64:
-            # Only exact if the array lives on a true-f64 backend (CPU).
-            return F64X.from_numpy(np.asarray(jax.device_get(x)))
+            return from_f64(x)
         raise TypeError(f"cannot convert jax array of dtype {x.dtype} to F64X")
     raise TypeError(f"cannot convert {type(x)} to F64X")
 
@@ -163,54 +161,23 @@ def from_f32(x: jax.Array) -> F64X:
     return F64X(hi, lo)
 
 
-def from_f64_dd(x: jax.Array) -> F64X:
-    """Exact bit planes of the PLATFORM's f64 value, device-side.
+def from_f64(x: jax.Array) -> F64X:
+    """Exact bit planes of a float64 array, device-side (one bitcast).
 
-    On CPU ``x`` is true IEEE f64 and the conversion is bit-exact over
-    the NORMAL range (incl. +-0): the value is brought near 1 by an
-    exact power-of-two regime scale, split into three RNE f32 components
-    (24+24+5 significand bits >= 53), and packed with one rounding at
-    the unscaled exponent (ops.pack).  F64 subnormals convert to signed
-    zero — XLA:CPU's own f64 arithmetic flushes them (even ``x * 1.0``),
-    so they cannot survive the platform-f64 computations this function
-    exists to capture.  On TPU ``x`` is XLA's double-float emulation
-    (~f32-pair significand, f32 exponent range); the conversion captures
-    that representation's value.  Used by the device-resident solvers to
-    hand platform-f64 panel results back to the exact engine carriage.
+    Works under ``jit`` and keeps every value bit-exact: subnormals,
+    signed zeros, values outside float32's range, infinities and NaN
+    payloads.
     """
-    from ..ops.pack import pack_f64x  # lazy: ops.pack imports this module
+    u = jax.lax.bitcast_convert_type(jnp.asarray(x, jnp.float64), jnp.uint64)
+    hi = (u >> np.uint64(32)).astype(jnp.uint32)
+    lo = jax.lax.convert_element_type(u & np.uint64(0xFFFFFFFF), jnp.uint32)
+    return F64X(hi, lo)
 
-    # regime index k in [-8, 8]: x is scaled by 2^(-128k) (two exact
-    # multiplies of <= 2^512 each, table-driven so the factors are exact
-    # constants), bringing |xs| into ~[2^-64, 2^64] where all three f32
-    # components are representable; log2 only PICKS the regime, so its
-    # accuracy is irrelevant.
-    ax = jnp.abs(x)
-    # XLA's log2 flushes subnormal inputs: pre-normalize tiny values by
-    # an exact 2^512 so the regime pick sees a normal number
-    tiny = ax < jnp.asarray(2.0**-512, x.dtype)
-    axn = jnp.where(tiny, ax * jnp.asarray(2.0**512, x.dtype), ax)
-    safe = jnp.where(axn > 0, axn, jnp.ones((), x.dtype))
-    lg = jnp.log2(safe) - jnp.where(tiny, 512.0, 0.0).astype(x.dtype)
-    k = jnp.clip(jnp.round(lg / 128.0), -8.0, 8.0).astype(jnp.int32)
-    table = jnp.asarray(
-        np.ldexp(1.0, -64 * np.arange(-8, 9)), dtype=x.dtype
-    )
-    s = table[k + 8]
-    xs = (x * s) * s
-    h = xs.astype(jnp.float32)
-    r1 = xs - h.astype(x.dtype)
-    l1 = r1.astype(jnp.float32)
-    l2 = (r1 - l1.astype(x.dtype)).astype(jnp.float32)
-    out = pack_f64x((h, l1, l2), 128 * k)
-    # pack emits +0 for a zero triple; restore the sign of -0.0 inputs.
-    # The sign test reads h's f32 sign bit — jnp.signbit on the f64 input
-    # would lower to a f64->s64 bitcast, which XLA:TPU's x64-removal pass
-    # rejects (h = f32(xs) preserves the zero's sign on both platforms).
-    sign32 = jax.lax.bitcast_convert_type(h, jnp.int32) >> 31
-    neg0 = (x == 0) & (sign32 != 0)
-    hi = jnp.where(neg0, out.hi | np.uint32(0x80000000), out.hi)
-    return F64X(hi, out.lo)
+
+def to_f64(x: F64X) -> jax.Array:
+    """The float64 array whose bits ``x`` holds (inverse of :func:`from_f64`)."""
+    u = (x.hi.astype(jnp.uint64) << np.uint64(32)) | x.lo.astype(jnp.uint64)
+    return jax.lax.bitcast_convert_type(u, jnp.float64)
 
 
 def mantissa_parts(x: F64X) -> Tuple[jax.Array, jax.Array]:

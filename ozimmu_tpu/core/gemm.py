@@ -1,16 +1,16 @@
-"""The device GEMM engine: split -> MXU recombination -> exact epilogue.
+"""The device GEMM engine: split -> int8 recombination -> exact epilogue.
 
-TPU-first equivalent of the reference orchestration layer
+Equivalent of the reference orchestration layer
 (src/gemm.cu:344-521 ``gemm_int8<double/cuDoubleComplex>`` and the
 dispatching ``mtk::ozimmu::gemm`` gemm.cu:524-653), with these deliberate
 architecture changes:
 
   * no handle/arena — XLA owns memory and scheduling; the whole GEMM is a
     single fused jitted computation instead of ~100 kernel launches;
-  * equal-weight slice pairs are fused into single longer int8
-    contractions on the MXU (ops/recombine.py);
-  * all f64 carriage is exact bit planes (core/f64x.py) because XLA:TPU
-    has no real f64;
+  * equal-weight slice pairs share one exact int32 total, so the
+    extended-precision fold runs once per weight, not once per pair
+    (ops/recombine.py);
+  * all f64 carriage is exact bit planes (core/f64x.py);
   * the epilogue (alpha/beta folding, reference gemm.cu:124-239) runs in
     triple-f32 extended precision with a single final rounding.
 
@@ -33,7 +33,7 @@ from ..schedule import bits_per_int8
 from ..core.f64x import F64X
 from ..ops import tf32x3
 from ..ops.pack import aligned_add, pack_f64x, scalar_triple, unpack_f64x
-from ..ops.recombine import acc_shift, recombine_auto
+from ..ops.recombine import acc_shift, recombine
 from ..ops.split import split_f64x, split_f64x_cols
 
 
@@ -71,7 +71,7 @@ def _gemm_core(
     bb = bits_per_int8(k)
     da, pa = split_f64x(a, num_split, bb)
     db, pb = split_f64x_cols(b, num_split, bb)
-    S = recombine_auto(da, db, num_split, bb, k)
+    S = recombine(da, db, num_split, bb, k)
     E = (pa[:, None] + pb[None, :] - acc_shift(num_split, bb)).astype(jnp.int32)
     return _epilogue_SE(S, E, alpha, beta, c)
 
@@ -100,8 +100,8 @@ def _gemm_core_nchunked(
     Bitwise-identical to :func:`_gemm_core` (B's split is per-column
     independent, the recombination sees the full k, and the epilogue is
     elementwise), but peak HBM for the B planes / int32 partials /
-    triple-f32 accumulator drops by ~n_chunks — what makes 16384^3 fit
-    in a v5e's 16 GB.  Full gemm contract: alpha/beta/c supported; any
+    triple-f32 accumulator drops by ~n_chunks — what lets shapes larger
+    than the device memory budget run.  Full gemm contract: alpha/beta/c supported; any
     ``n`` (the last panel is simply narrower).
     """
     m, k = a.shape
@@ -117,7 +117,7 @@ def _gemm_core_nchunked(
         j1 = min(j0 + w, n)
         bj = _col_slice(b, j0, j1)
         db, pb = split_f64x_cols(bj, num_split, bb)
-        S = recombine_auto(da, db, num_split, bb, k)
+        S = recombine(da, db, num_split, bb, k)
         E = (pa[:, None] + pb[None, :] - shift).astype(jnp.int32)
         outs.append(_epilogue_SE(S, E, alpha, beta, _col_slice(c, j0, j1)))
     return F64X(
@@ -139,7 +139,7 @@ def gemm_f64x(
 
     ``n_chunks=None`` auto-selects column-panel streaming from the
     working-set estimate vs the HBM budget (schedule.auto_n_chunks), so
-    huge shapes (e.g. 16384^3 on a 16 GB v5e) work through the ordinary
+    huge shapes work through the ordinary
     entry points with no env knobs — the reference ``gemm`` contract
     (gemm.cu:524-653) works at any size memory allows.  1 forces the
     single-graph engine; chunked and unchunked results are bitwise
@@ -256,7 +256,7 @@ def _zgemm_core(
     for ap, bp in ZGEMM_PASSES:
         da, pa = a_planes[ap]
         db, pb = b_planes[bp]
-        S = recombine_auto(da, db, num_split, bb, k)
+        S = recombine(da, db, num_split, bb, k)
         E = (pa[:, None] + pb[None, :] - shift).astype(jnp.int32)
         SEs.append((S, E))
     return _zfold_passes(SEs, m, n, alpha, beta, c_re, c_im)
@@ -303,7 +303,7 @@ def _zgemm_core_nchunked(
         for ap, bp in ZGEMM_PASSES:
             da, pa = a_planes[ap]
             db, pb = b_planes[bp]
-            S = recombine_auto(da, db, num_split, bb, k)
+            S = recombine(da, db, num_split, bb, k)
             E = (pa[:, None] + pb[None, :] - shift).astype(jnp.int32)
             SEs.append((S, E))
         o_re, o_im = _zfold_passes(

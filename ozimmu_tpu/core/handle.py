@@ -3,7 +3,7 @@
 API-parity layer for the reference handle (include/ozimmu/ozimmu.hpp:47-73,
 src/handle.cu).  The CUDA handle owned a cuBLAS sub-handle, a stream and a
 grow-only device arena; under JAX/XLA all of that belongs to the runtime,
-so the TPU handle keeps only:
+so this handle keeps only:
 
   * interception thresholds (env ``OZIMMU_INTERCEPT_THRESHOLD_{M,N,K}``,
     default 1024 — reference handle.cu:25-30),
@@ -13,7 +13,7 @@ so the TPU handle keeps only:
   * a default compute mode.
 
 ``reallocate_working_memory(handle, gemm_list)`` keeps its reference
-meaning "make these GEMM shapes cheap to launch" — on TPU that is
+meaning "make these GEMM shapes cheap to launch" — under XLA that is
 ahead-of-time compilation, so it warms the jit cache for every listed
 shape and returns the estimated device working set in bytes
 (reference handle.cu:95-144 semantics).

@@ -1,6 +1,6 @@
 """Drop-in interception of float64 matmuls in JAX programs.
 
-TPU replacement for the reference's LD_PRELOAD cuBLAS shim
+The JAX counterpart of the reference's LD_PRELOAD cuBLAS shim
 (src/cublas.cu:103-513): instead of hijacking dynamic-linker symbols, this
 module monkey-patches ``jnp.dot``, ``jnp.matmul``, ``jnp.einsum`` and
 ``jax.lax.dot_general`` so qualifying float64/complex128 contractions are
@@ -15,12 +15,9 @@ unless pinned via ``enable(mode=...)``.
 
 Works both eagerly and under ``jax.jit``:
 
-  * eager numpy/CPU arrays: exact bit-level conversion;
-  * traced arrays (incl. on TPU, where XLA f64 is a lossy double-float and
-    bitcasts don't compile): the value is peeled into exact f32 components
-    arithmetically and packed into exact bits on device.  Interception
-    then computes the *exact* product of the stored values — strictly more
-    accurate and faster than XLA's own emulated-f64 matmul.
+  * eager and traced arrays alike: the f64 operands are bitcast to their
+    exact IEEE bits on device (no host round trip), the engine computes
+    the product of the stored values, and the result is bitcast back.
 
 Usage::
 
@@ -43,17 +40,33 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core.f64x import F64X
+from ..core.f64x import F64X, from_f64, to_f64
 from ..core.gemm import _gemm_core, _zgemm_core, gemm_f64x, zgemm_f64x
 from ..core.handle import Handle, default_handle
-from ..ops import tf32x3
-from ..ops.pack import pack_f64x, unpack_f64x
 from ..types import ComputeMode
 from ..utils.env import env_compute_mode, env_flag
 from ..utils.log import error, log
 from ..utils.profiling import culip_timer
 
 _state = threading.local()
+
+#: contractions rerouted through the engine, by route name — counted when
+#: the call is traced or run eagerly (a jitted program counts once per
+#: trace, not per execution).  Read with :func:`routed_calls`.
+_routed = {}
+_routed_lock = threading.Lock()
+
+
+def routed_calls() -> dict:
+    """How many contractions were rerouted through the engine, per route
+    (``"2d"``, ``"complex_2d"``, ``"batched"``, ``"batched_complex"``)."""
+    return dict(_routed)
+
+
+def _count(route) -> None:
+    name = route.__name__.removeprefix("_route_")
+    with _routed_lock:
+        _routed[name] = _routed.get(name, 0) + 1
 
 
 def _tls():
@@ -65,34 +78,10 @@ def _tls():
     return _state
 
 
-# ---------------------------------------------------------------------------
-# traced f64 <-> F64X conversion (works under jit on any backend)
-# ---------------------------------------------------------------------------
-
-
-def f64_to_f64x_traced(x: jax.Array) -> F64X:
-    """Peel a (possibly emulated) f64 tracer into exact IEEE bits.
-
-    Three rounds of round-to-f32-and-subtract capture >= 72 bits — i.e.
-    everything a true f64 (CPU) or a double-float (TPU) can hold — then
-    the pack kernel reassembles exact f64 bits on device.
-    """
-    t0 = x.astype(jnp.float32)
-    r1 = x - t0.astype(jnp.float64)
-    t1 = r1.astype(jnp.float32)
-    r2 = r1 - t1.astype(jnp.float64)
-    t2 = r2.astype(jnp.float32)
-    E = jnp.zeros(x.shape, dtype=jnp.int32)
-    return pack_f64x((t0, t1, t2), E)
-
-
-def f64x_to_f64_traced(x: F64X) -> jax.Array:
-    """Best-effort conversion back to the platform's f64 representation."""
-    t, E = unpack_f64x(x)
-    s = tf32x3.scale_pow2(t, E)
-    return (
-        s[0].astype(jnp.float64) + s[1].astype(jnp.float64) + s[2].astype(jnp.float64)
-    )
+# traced f64 <-> F64X conversion: one exact bitcast each way, usable
+# under jit on every backend
+f64_to_f64x_traced = from_f64
+f64x_to_f64_traced = to_f64
 
 
 # ---------------------------------------------------------------------------
@@ -126,10 +115,9 @@ def _feasible_candidates(
 
     A ``lax.switch`` branch compiles whether or not it is ever selected,
     and XLA's AOT memory check rejects the WHOLE program if any branch
-    cannot fit — at 16384^3 the ns=18 branch's resident planes alone
-    (18 m*k int8 + operand bits) exceed a 16 GB chip at every chunking,
-    so keeping it would make AUTO uncompilable at exactly the scales
-    AUTO matters for (measured: tools/traced_auto_cost.py).  Deep
+    cannot fit — the deep branches' resident planes (ns * m*k int8 plus
+    operand bits) outgrow the budget first, so keeping them would make
+    AUTO uncompilable at exactly the scales AUTO matters for.  Deep
     candidates the memory cannot hold are pruned (loudly); if nothing
     fits the shallowest candidate is kept so the selection logic stays
     well-formed and the runtime reports the genuine OOM."""
@@ -208,9 +196,8 @@ def _route_2d_auto_traced(a, b, handle: Handle):
             preferred_element_type=jnp.float64,
         )
 
-    # all-rejected branch: same platform-aware policy as the eager
-    # selection loop (ops.mantissa_loss.auto_fallback_mode) — on TPU the
-    # deepest int8 engine beats the ~49-bit double-float "native" f64
+    # all-rejected branch: same policy as the eager selection loop
+    # (ops.mantissa_loss.auto_fallback_mode)
     fallback = native if _fallback_is_native() else eng(max(cands))
     branches = [eng(ns) for ns in cands] + [fallback]
     return jax.lax.switch(idx, branches, (ax, bx, a, b))
@@ -545,6 +532,7 @@ def _patched_dot_general(lhs, rhs, dimension_numbers, *args, **kwargs):
                 with culip_timer(f"intercept_dot_general-m{m}-n{n}-k{k}"):
                     r = route(jnp.asarray(a), jnp.asarray(b), mode, handle)
                 if r is not None:
+                    _count(route)
                     return r
         elif (
             ldt == rdt
@@ -572,6 +560,7 @@ def _patched_dot_general(lhs, rhs, dimension_numbers, *args, **kwargs):
                     ):
                         r = route(a3, b3, mode, handle)
                     if r is not None:
+                        _count(route)
                         return r.reshape(out_shape)
     except Exception as e:  # fall back to native on any issue — but LOUDLY
         # (a silent fallback once masked three rerouting bugs; the error

@@ -12,7 +12,7 @@ Fixes carried over from the survey: the reference allocates 8 counter
 slots but writes 16 (handle.hpp:22 vs split.cu:397) — a device OOB.  Here
 the counter vector is sized from the mode range (16 slots for ns=3..18).
 
-TPU-first: instead of an ``atomicAdd`` kernel per operand, the whole loss
+Instead of an ``atomicAdd`` kernel per operand, the whole loss
 table for all 16 candidate split counts is one jitted int32 reduction over
 the exponent field (the expensive part, the exponent load, is shared
 across all candidates).
@@ -82,47 +82,27 @@ def mantissa_loss_totals(x: F64X, b: int, axis: int = 1) -> jax.Array:
 
 def auto_fallback_mode() -> ComputeMode:
     """The mode AUTO falls back to when even ns=18 exceeds the loss
-    threshold.
+    threshold: native ``DGEMM``, as in the reference (split.cu:473-493,
+    gemm.cu:639-645).  Every backend JAX runs on (CPU, NVIDIA GPU) has
+    IEEE float64, so the native product is exact-to-rounding and needs
+    one GEMM instead of the 171 int8 products of ``fp64_int8_18``.
 
-    The reference falls back to native ``dgemm`` because on a GPU that is
-    TRUE hardware f64 — strictly more accurate than any rejected int8
-    mode (reference split.cu:473-493, gemm.cu:639-645).  On TPU "native
-    f64" is XLA's double-float emulation (~49-bit mantissa), which is
-    *less* accurate than the ``fp64_int8_18`` path AUTO just rejected
-    (the estimator's lost bits sit on small-magnitude elements; measured:
-    int8_18 residual ~4e-17 vs double-float ~2e-15 on exponent spreads
-    wide enough to reject ns=18 — tests/test_api.py::TestAutoFallback).
-    So the platform-aware policy is:
-
-      * CPU backend (true IEEE f64)  -> ``ComputeMode.DGEMM``
-      * anything else (TPU)          -> ``ComputeMode.FP64_INT8_18``
-
-    Override with ``OZIMMU_AUTO_FALLBACK=dgemm|int8_18`` (``auto`` =
-    platform policy above).
+    Override with ``OZIMMU_AUTO_FALLBACK=int8_18`` (``dgemm`` = the
+    default).
     """
     import os
 
-    raw = os.environ.get("OZIMMU_AUTO_FALLBACK", "auto").lower()
-    if raw in ("dgemm", "native"):
-        return ComputeMode.DGEMM
+    raw = os.environ.get("OZIMMU_AUTO_FALLBACK", "dgemm").lower()
     if raw in ("int8_18", "deepest"):
         return ComputeMode.FP64_INT8_18
-    import jax
-
-    return (
-        ComputeMode.DGEMM
-        if jax.default_backend() == "cpu"
-        else ComputeMode.FP64_INT8_18
-    )
+    return ComputeMode.DGEMM
 
 
 def select_mode_from_totals(totals, denom: float, threshold: float) -> ComputeMode:
     """The reference selection loop (split.cu:473-493): smallest ns whose
     AVERAGE loss (``totals[ns] / denom``) is within threshold, else the
-    platform-aware fallback (:func:`auto_fallback_mode` — the reference's
-    dgemm fallback is only kept where native f64 really is more accurate
-    than the rejected int8 path).  Shared by every AUTO surface — host
-    API, batched, interceptor, and the distributed estimator."""
+    fallback (:func:`auto_fallback_mode`).  Shared by every AUTO surface
+    — host API, batched, interceptor, and the distributed estimator."""
     totals = np.asarray(totals)
     for idx, ns in enumerate(_NS_CANDIDATES):
         if totals[idx] / denom <= threshold:

@@ -3,10 +3,9 @@
 The engine's result exists on device as ``(triple-f32 mantissa, int32
 exponent)`` per element.  This module rounds that ~71-bit value to the
 nearest IEEE-754 binary64 and assembles the (hi, lo) uint32 bit planes of
-:class:`~ozimmu_tpu.core.f64x.F64X` — the TPU replacement for the
-reference's f64 epilogue kernels (``axby`` src/gemm.cu:124-158,
-``axy_complex`` gemm.cu:160-197), which relied on hardware f64 that TPUs
-do not have.
+:class:`~ozimmu_tpu.core.f64x.F64X` — the counterpart of the reference's
+f64 epilogue kernels (``axby`` src/gemm.cu:124-158, ``axy_complex``
+gemm.cu:160-197), with one rounding instead of one per step.
 
 Everything uses native int32/f32 plus (emulated) int64 shifts; correctness
 is validated bit-for-bit against numpy on the CPU backend, where all JAX
@@ -50,9 +49,9 @@ def _f32_fields(x: jax.Array) -> Tuple[jax.Array, jax.Array, jax.Array]:
     that underflowed to subnormal still contribute exactly (pack_f64x
     reads their exponent as ``max(ef, 1)``).  The engine keeps its
     accumulator components in normal range (ops/recombine.py ACC_SHIFT),
-    so on TPU — which flushes f32 denormals in arithmetic — this path
-    only ever sees zeros; on CPU it makes pack exact for out-of-envelope
-    inputs too.
+    so on a backend that flushes f32 denormals in arithmetic this path
+    only ever sees zeros; where they survive it makes pack exact for
+    out-of-envelope inputs too.
     """
     bits = jax.lax.bitcast_convert_type(x, jnp.int32)
     sgn = jnp.where(bits < 0, np.int32(-1), np.int32(1))

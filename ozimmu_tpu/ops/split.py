@@ -1,11 +1,13 @@
 """Device-side mantissa split: exact f64 bits -> sign-magnitude int8 planes.
 
-TPU-native re-derivation of the reference split kernel
-(src/split.cu:154-242): instead of CUDA warp reductions over a 128-bit
-temporary, the 53-bit significand is carried as two uint32 words (from the
+Re-derivation of the reference split kernel (src/split.cu:154-242):
+instead of CUDA warp reductions over a 128-bit temporary, the 53-bit
+significand is carried as two uint32 words (from the
 :class:`~ozimmu_tpu.core.f64x.F64X` bit planes) and each b-bit digit window
-is extracted with a branch-free 32-bit funnel shift — all native int32 VPU
-ops, no f64 arithmetic anywhere.
+is extracted with a branch-free 32-bit funnel shift — all int32
+elementwise ops, no f64 arithmetic anywhere.  XLA fuses the whole split
+(the row-max reduction aside) into one elementwise kernel over the
+``[ns, rows, cols]`` plane tensor.
 
 Semantics parity with the reference:
   * per-row max exponent, doubled (``x2``, split.cu:187-204):
@@ -107,29 +109,8 @@ def split_with_row_exp(
     return digits, pexp
 
 
-def _use_pallas_split(shape) -> bool:
-    """Engine selection, same env contract as ops/recombine.use_pallas_engine:
-    OZIMMU_ENGINE = pallas | xla | auto (default: Pallas on TPU for shapes
-    large enough to tile)."""
-    import os
-
-    mode = os.environ.get("OZIMMU_ENGINE", "auto")
-    if mode == "pallas":
-        return True
-    if mode == "xla":
-        return False
-    return jax.default_backend() == "tpu" and min(shape) >= 128
-
-
-def _split_dispatch(x: F64X, num_split: int, b: int, axis: int):
-    e_max = row_exponent(x, axis)
-    if _use_pallas_split(x.shape):
-        from .split_pallas import split_digits_pallas
-
-        digits = split_digits_pallas(x.hi, x.lo, e_max, num_split, b, axis)
-        pexp = jnp.where(e_max > 0, e_max - 1022, ZERO_ROW_PEXP).astype(jnp.int32)
-        return digits, pexp
-    return split_with_row_exp(x, e_max, num_split, b, axis=axis)
+def _split(x: F64X, num_split: int, b: int, axis: int):
+    return split_with_row_exp(x, row_exponent(x, axis), num_split, b, axis=axis)
 
 
 @partial(jax.jit, static_argnums=(1, 2), inline=True)
@@ -139,16 +120,17 @@ def split_f64x(x: F64X, num_split: int, b: int) -> Tuple[jax.Array, jax.Array]:
     Returns ``(digits, pexp)``: ``digits`` int8 ``[ns, rows, k]``, ``pexp``
     int32 ``[rows]`` with row scale ``2^pexp``.
     """
-    return _split_dispatch(x, num_split, b, axis=1)
+    return _split(x, num_split, b, axis=1)
 
 
 @partial(jax.jit, static_argnums=(1, 2), inline=True)
 def split_f64x_cols(x: F64X, num_split: int, b: int) -> Tuple[jax.Array, jax.Array]:
     """Split ``x`` [k, cols] along columns (for the B operand).
 
-    Same semantics as splitting ``x.T`` row-wise (reference
-    split.cu:277-282 swaps m/n and the op), but computed directly in the
-    [k, cols] layout — no plane transposes, which are expensive relayouts
-    on TPU.  Returns digits int8 ``[ns, k, cols]`` and pexp int32 [cols].
+    Computed as the row-wise split of ``x.T`` (reference split.cu:277-282
+    swaps m/n and the op).  Returns digits int8 ``[ns, k, cols]`` and
+    pexp int32 [cols]; XLA is free to keep the planes k-minor, the layout
+    the int8 GEMMs read, so the only transposes are of the u32 inputs.
     """
-    return _split_dispatch(x, num_split, b, axis=0)
+    d, p = _split(F64X(x.hi.T, x.lo.T), num_split, b, axis=1)
+    return jnp.swapaxes(d, 1, 2), p

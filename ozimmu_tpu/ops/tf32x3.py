@@ -1,17 +1,18 @@
-"""Triple-float32 expansion arithmetic (~71-bit significand) for TPU.
+"""Triple-float32 expansion arithmetic (~71-bit significand).
 
-The recombination and epilogue of the Ozaki engine need more significand
-than any native TPU dtype offers: the reference accumulates partial
-products in hardware f64 (reference src/gemm.cu:77-102,124-158); XLA:TPU
-"f64" is only a ~49-bit double-float.  This module implements an unevaluated
+The recombination and epilogue of the Ozaki engine accumulate in more
+significand than float64 holds: the reference accumulates partial
+products in hardware f64 (reference src/gemm.cu:77-102,124-158) and
+rounds at every step.  This module implements an unevaluated
 sum of three float32 components — a "triple-float" in the style of
 double-double/quad-double expansion arithmetic (Dekker 1971, Hida-Li-Bailey
 QD) — giving ~71 bits, comfortably above f64's 53.
 
-Every primitive here uses only IEEE round-to-nearest f32 add/sub/mul, which
-the TPU VPU provides natively.  No FMA is assumed: exact products use
-Dekker splitting.  Denormal flushing on TPU is handled by keeping operand
-magnitudes in safe exponent ranges (see ops/recombine.py ACC_SHIFT).
+Every primitive here uses only IEEE round-to-nearest f32 add/sub/mul.  No
+FMA is assumed: exact products use Dekker splitting.  Denormal flushing
+(XLA:CPU flushes, XLA:GPU does not) is kept out of the results by keeping
+operand magnitudes in safe exponent ranges (see ops/recombine.py
+ACC_SHIFT).
 
 All functions operate elementwise on jnp.float32 arrays and are shape-
 polymorphic.  A triple is a tuple ``(s0, s1, s2)`` with ``|s0| >= |s1| >=
@@ -28,7 +29,7 @@ import numpy as np
 
 Triple = Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]
 
-_SPLITTER = np.float32(4097.0)  # 2^12 + 1, Dekker split constant for f32
+_HI12 = np.int32(-4096)  # 0xFFFFF000: sign, exponent and 11 leading fraction bits
 
 
 def two_sum(a, b):
@@ -47,20 +48,20 @@ def quick_two_sum(a, b):
 
 
 def f32_split(a):
-    """Dekker split: a == hi + lo with hi, lo having <= 12 significand bits."""
-    c = _SPLITTER * a
-    hi = c - (c - a)
-    lo = a - hi
-    return hi, lo
+    """a == hi + lo exactly, ``hi`` the leading 12 significand bits (bit
+    masking — no multiply) and ``lo`` the remaining <= 12."""
+    bits = jax.lax.bitcast_convert_type(a, jnp.int32) & _HI12
+    hi = jax.lax.bitcast_convert_type(bits, jnp.float32)
+    return hi, a - hi
 
 
-def two_prod(a, b):
-    """Dekker TwoProd: p + e == a * b exactly (round-to-nearest, no FMA)."""
-    p = a * b
+def prod_terms(a, b):
+    """Four f32 terms whose exact sum is ``a * b``; each term is a
+    product of two <= 12-bit halves, so it is computed EXACTLY (barring
+    under/overflow)."""
     ah, al = f32_split(a)
     bh, bl = f32_split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
+    return ah * bh, ah * bl, al * bh, al * bl
 
 
 def zeros(shape) -> Triple:
@@ -104,17 +105,17 @@ def neg(x: Triple) -> Triple:
 def mul(x: Triple, y: Triple) -> Triple:
     """Triple * triple to ~70-bit accuracy.
 
-    Keeps all O(eps^2) cross terms; drops O(eps^3) ones (x1*y2 etc. are
-    kept in plain f32 which is sufficient at that magnitude).
+    Keeps all O(eps^2) cross terms; drops O(eps^3) ones (x1*y2 etc.).
+    Every product is split into exact partial products
+    (:func:`prod_terms`) and only additions round, so a compiler that
+    contracts a multiply and an add into one FMA (XLA:GPU does) computes
+    the same bits as one that does not.
     """
-    p00, e00 = two_prod(x[0], y[0])
-    p01, e01 = two_prod(x[0], y[1])
-    p10, e10 = two_prod(x[1], y[0])
-    t2 = x[1] * y[1] + (x[0] * y[2] + x[2] * y[0]) + (e01 + e10)
-    acc = (p00, e00, jnp.zeros_like(p00))
-    acc = add_term(acc, p01)
-    acc = add_term(acc, p10)
-    acc = add_term(acc, t2)
+    acc = zeros(jnp.shape(x[0]))
+    for a, b in ((x[0], y[0]), (x[0], y[1]), (x[1], y[0]),
+                 (x[1], y[1]), (x[0], y[2]), (x[2], y[0])):
+        for term in prod_terms(a, b):
+            acc = add_term(acc, term)
     return renorm(acc)
 
 

@@ -1,12 +1,13 @@
 """Distributed 2D-sharded FP64 GEMM over a JAX device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2: no NCCL/MPI, one CUDA
-stream); this layer is the TPU-native scale-out the north star requires
+stream); this layer is the multi-device scale-out the north star requires
 (BASELINE.json configs[4]).  The problem decomposition makes distribution
 cheap in exactly one place, and this implementation exploits it: the int8
 slice planes are ~8x smaller than the f64 operands they encode, so all
-cross-device traffic is int8 (plus tiny int32 exponent vectors) and rides
-ICI.  No f64 word ever crosses a chip boundary.
+cross-device traffic is int8 (plus tiny int32 exponent vectors) over the
+device interconnect (NVLink between the GPUs of one host).  No f64 word
+ever crosses a device boundary.
 
 Algorithm (SUMMA-style, blocks on a (x, y) mesh):
 
@@ -20,7 +21,7 @@ Algorithm (SUMMA-style, blocks on a (x, y) mesh):
      parallel);
   3. ``all_gather`` A's planes along ``y`` and B's planes along ``x``
      (int8, tiled) so every device owns full-k slabs;
-  4. local fused MXU recombination + exact epilogue -> C block P(x, y).
+  4. local int8 recombination + exact epilogue -> C block P(x, y).
 
 Communication per device: ns*(m/x)*k + ns*k*(n/y) int8 bytes — for ns=9
 that is ~9/8 the bytes of ONE f64 operand gather, vs 8x that for a naive
@@ -38,7 +39,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.f64x import F64X
-from ..ops.recombine import acc_shift, recombine_auto
+from ..ops.recombine import acc_shift, recombine
 from ..ops.split import row_exponent, split_with_row_exp
 from ..schedule import bits_per_int8
 
@@ -143,7 +144,7 @@ def sharded_gemm_fn(
         db_full = jax.lax.all_gather(db, axis_x, axis=1, tiled=True)  # [ns, k, n/y]
 
         # 4. local recombination + exact epilogue
-        S = recombine_auto(da_full, db_full, num_split, b, k_global)
+        S = recombine(da_full, db_full, num_split, b, k_global)
         E = (pa[:, None] + pb[None, :] - acc_shift(num_split, b)).astype(jnp.int32)
         return _epilogue_local(S, E, alpha, beta, c)
 
@@ -329,9 +330,9 @@ def sharded_gemm_ring_fn(
     device (i, j) holds A k-panel (i+j+s) mod q and B k-panel (i+j+s)
     mod q at every step s, so one neighbour ``ppermute`` per ring per
     step keeps the panels aligned.  Peak memory is TWO panels per
-    operand instead of the full-k slab (q-fold less); total ICI bytes
-    are the same int8 planes, and XLA overlaps the step-s+1 permute
-    with the step-s MXU contraction.
+    operand instead of the full-k slab (q-fold less); total interconnect
+    bytes are the same int8 planes, and XLA can overlap the step-s+1
+    permute with the step-s int8 contraction.
 
     The k contraction accumulates exact int32 group totals across steps
     (the schedule's chunk cap bounds the FULL k), folded once at the
@@ -399,11 +400,11 @@ def sharded_gemm_stream_fn(
     into L = lcm(xs, ys) aligned k-panels; at step u the A panel's owner
     column broadcasts it along y and the B panel's owner row broadcasts
     it along x (a masked ``psum`` — zeros from non-owners — which XLA
-    lowers to a ring all-reduce and overlaps with the step-u MXU
+    lowers to an all-reduce that can overlap with the step-u int8
     contraction), and every device accumulates the panel product into its
     exact int32 group totals.  Peak memory is the local split planes plus
     ONE broadcast panel pair — ~min(xs, ys)-fold less than the all-gather
-    slabs.  Total ICI bytes are ~2x the all-gather formulation's (ring
+    slabs.  Total interconnect bytes are ~2x the all-gather formulation's (ring
     all-reduce moves each byte twice), the price of rectangular-mesh
     streaming; results are bitwise-identical to every other variant
     (int32 sums are order-independent).
@@ -572,7 +573,7 @@ def sharded_zgemm_fn(
     """Distributed 4-pass complex GEMM: ``alpha*(a@b) + beta*c`` for
     complex128 operands carried as (re, im) F64X plane pairs.
 
-    The TPU-native ZGEMM scale-out (reference complex engine
+    The ZGEMM scale-out (reference complex engine
     gemm.cu:412-521 has no distributed analogue): each of the four re/im
     plane sets is split locally and its int8 planes gathered along the
     contraction axis exactly like the real SUMMA variant — 2x the planes
@@ -608,7 +609,7 @@ def sharded_zgemm_fn(
         for ap, bp in ZGEMM_PASSES:
             da, pa = a_planes[ap]
             db, pb = b_planes[bp]
-            S = recombine_auto(da, db, num_split, b, k_global)
+            S = recombine(da, db, num_split, b, k_global)
             E = (pa[:, None] + pb[None, :] - np.int32(shift)).astype(jnp.int32)
             SEs.append((S, E))
         m_l, n_l = SEs[0][1].shape
@@ -855,16 +856,10 @@ def sharded_dgemm_native_fn(
     reference gemm.cu:592-599 cublasGemmEx fallback).
 
     Plain f64 SUMMA: all_gather A along y and B along x, one local f64
-    dot per device (on TPU, XLA's double-double emulation — same
-    semantics as the single-chip fallback), elementwise epilogue.  f64
-    words DO cross the ICI here (8x the int8-plane bytes).  Note this is
-    only the AUTO fallback target where native f64 really is the most
-    accurate option (CPU backend, or OZIMMU_AUTO_FALLBACK=dgemm): on TPU
-    the double-float "native" is LESS accurate than the int8_18 path, so
-    the shared selection loop (ops.mantissa_loss.auto_fallback_mode)
-    prefers the deepest int8 mode there and this function is reached only
-    by explicit request.  Same in/out shardings as
-    :func:`sharded_gemm_fn`, operating on plain f64 arrays.
+    dot per device (cuBLAS DGEMM on the GPU — same semantics as the
+    single-chip fallback), elementwise epilogue.  f64 words cross the
+    interconnect here (8x the int8-plane bytes).  Same in/out shardings
+    as :func:`sharded_gemm_fn`, operating on plain f64 arrays.
     """
     alpha, beta = float(alpha), float(beta)
     spec2d = P(axis_x, axis_y)
@@ -1289,7 +1284,7 @@ def select_variant(
     * over budget, square mesh, ring fits -> "ring": Cannon streaming,
       neighbour-only traffic, 2 resident panels;
     * over budget otherwise -> "stream": panel-streamed true SUMMA,
-      works on ANY mesh shape (~2x the ICI bytes — ring all-reduce);
+      works on ANY mesh shape (~2x the interconnect bytes — all-reduce);
     * nothing fits -> ValueError (the budget decision is honest: no
       variant with a feasible memory model exists; raise instead of
       returning a plan that will OOM).
@@ -1549,23 +1544,14 @@ def sharded_gemm_k(
 def make_mesh_2d(n_devices: Optional[int] = None, axis_x: str = "x", axis_y: str = "y") -> Mesh:
     """Largest 2D mesh (x*y = n) with x as square as possible.
 
-    Device order comes from ``mesh_utils.create_device_mesh`` so mesh
-    neighbours are physical ICI neighbours on real TPU slices (ring/SUMMA
-    collectives then ride single-hop links).  Results are device-order
-    independent (the engine's cross-chip sums are exact int32), so the
-    reshape fallback — used for virtual CPU meshes, whose devices have no
-    topology — is bitwise-identical, just slower on real hardware.
+    A plain reshape of ``jax.devices()``: the GPUs of one host are joined
+    all to all (NVLink), so no device order is better than another, and
+    the engine's cross-device sums are exact int32 — results are
+    device-order independent.
     """
     devs = jax.devices()
     n = n_devices or len(devs)
     x = int(np.floor(np.sqrt(n)))
     while n % x:
         x -= 1
-    shape = (x, n // x)
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_device_mesh(shape, devices=devs[:n])
-    except Exception:  # virtual/CPU devices: no topology info to exploit
-        arr = np.array(devs[:n]).reshape(shape)
-    return Mesh(arr, (axis_x, axis_y))
+    return Mesh(np.array(devs[:n]).reshape(x, n // x), (axis_x, axis_y))

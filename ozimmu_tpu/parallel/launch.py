@@ -1,46 +1,47 @@
 """Multi-process (multi-host) launch utilities.
 
 The reference is strictly single-GPU, single-process (SURVEY.md §2: no
-NCCL/MPI); the north star (BASELINE.md: multi-host v5p-16 at 131072^3)
-requires the TPU rebuild to run the SAME sharded GEMMs across processes —
-ICI within a host, DCN across.  The pieces:
+NCCL/MPI); the north star (BASELINE.md configs[4]) requires running the
+SAME sharded GEMMs across processes.  The pieces:
 
   * :func:`initialize` — ``jax.distributed.initialize`` with env
-    fallbacks, so a pod launcher only has to export three variables;
-  * :func:`make_mesh_2d_hybrid` — a 2D (x, y) mesh whose x axis is
-    hierarchical: process (DCN) blocks outer, local (ICI) devices inner.
-    Mesh NEIGHBOURS along y and within an x block are then ICI
-    neighbours, so the heavy int8-plane all-gathers ride ICI and only
-    the x-axis segment that crosses a process boundary touches DCN;
+    fallbacks, so a launcher only has to export three variables;
+  * :func:`make_mesh_2d_hybrid` — a 2D (x, y) mesh over every process's
+    devices in which each process's local devices form one contiguous
+    block, and the process dimension is the OUTER factor of one axis.
+    Only that axis's collectives cross a process boundary (the slower
+    network between hosts); everything else stays on the host's own
+    interconnect;
   * :func:`replicated_f64x` — build a sharded global F64X from an
     identical per-process numpy array (the multi-process analogue of
     ``device_put``).
 
-The engine's cross-chip reductions are exact int32 sums and the epilogue
-is elementwise, so multi-process results are BITWISE-identical to
-single-process and single-chip execution — asserted by
+The engine's cross-device reductions are exact int32 sums and the
+epilogue is elementwise, so multi-process results are BITWISE-identical
+to single-process and single-device execution — asserted by
 tests/test_multiprocess.py on 2 processes x 4 virtual CPU devices.
 
-Topology -> variant selection (see parallel/gemm.py for the variants):
+Problem shape -> variant selection (see parallel/gemm.py for the
+variants, and ``select_variant`` for the code):
 
   ============================  =====================================
   regime                        variant
   ============================  =====================================
-  operands fit every HBM        ``sharded_gemm_fn`` (all-gather SUMMA;
+  operands fit every device     ``sharded_gemm_fn`` (all-gather SUMMA;
                                 fewest collective steps, XLA overlaps
                                 the two independent gathers)
   huge operands, square mesh    ``sharded_gemm_ring_fn`` /
                                 ``sharded_zgemm_ring_fn`` (Cannon:
                                 2-panel peak memory, neighbour-only
-                                ppermute traffic — ICI-friendly)
+                                ppermute traffic)
   tall contraction (huge k,     ``sharded_gemm_k_fn`` (1D k-sharded;
   modest m*n)                   psum_scatter of int32 group totals)
-  multi-process (DCN present)   same variants on a hybrid mesh; put
-                                the DCN cut on the axis with the
+  several processes             same variants on a hybrid mesh; put
+                                the process cut on the axis with the
                                 SMALLER gather volume (x gathers B's
                                 ns*k*(n/y) bytes, y gathers A's
                                 ns*(m/x)*k — pick via
-                                :func:`dcn_axis_for`)
+                                :func:`process_axis_for`)
   ============================  =====================================
 """
 
@@ -64,9 +65,9 @@ def initialize(
     """``jax.distributed.initialize`` with OZIMMU_* env fallbacks.
 
     Env: ``OZIMMU_COORDINATOR`` (host:port), ``OZIMMU_NUM_PROCS``,
-    ``OZIMMU_PROC_ID``.  On TPU pods all three are auto-detected by JAX
-    and may be omitted entirely; on CPU/GPU fleets they are required.
-    Call BEFORE any other JAX API (backend queries freeze the topology).
+    ``OZIMMU_PROC_ID``.  All three are required unless a cluster
+    environment JAX recognises supplies them.  Call BEFORE any other JAX
+    API (backend queries freeze the topology).
     """
     kwargs = {}
     coord = coordinator_address or os.environ.get("OZIMMU_COORDINATOR")
@@ -81,71 +82,54 @@ def initialize(
     jax.distributed.initialize(**kwargs)
 
 
-def dcn_axis_for(
+def process_axis_for(
     m: int, n: int, k: int, num_split: int,
     axis_x: str = "x", axis_y: str = "y",
 ) -> str:
-    """Which 2D-mesh axis should absorb the DCN (process) cut.
+    """Which 2D-mesh axis should absorb the process (host) cut.
 
     The SUMMA variant all-gathers A's planes along y (ns*(m/x)*k int8
     bytes per device) and B's planes along x (ns*k*(n/y) bytes).  The
-    slower fabric belongs on the axis that moves FEWER bytes: gathering
-    along x crosses the x-cut, so put DCN on x when B's gather is the
-    smaller, else on y.
+    slower network belongs on the axis that moves FEWER bytes: gathering
+    along x crosses the x-cut, so put the process cut on x when B's
+    gather is the smaller, else on y.
     """
     # per-device gather bytes are proportional to m (y-gather) vs n
     # (x-gather) once the mesh is square-ish; ns and k cancel.  Returns
     # the CALLER'S axis names so custom-named meshes can't silently get
-    # the DCN cut on the wrong axis.
+    # the cut on the wrong axis.
     return axis_x if n <= m else axis_y
 
 
 def make_mesh_2d_hybrid(
     axis_x: str = "x",
     axis_y: str = "y",
-    dcn_axis: Optional[str] = None,
+    process_axis: Optional[str] = None,
 ) -> Mesh:
-    """2D (x, y) mesh over ALL processes' devices, DCN-aware.
+    """2D (x, y) mesh over ALL processes' devices, one block per process.
 
-    The process dimension multiplies into ``dcn_axis`` (default x) as
-    its OUTER factor via ``mesh_utils.create_hybrid_device_mesh``, so
-    each process's local devices form a contiguous ICI block of the
-    mesh.  Single-process falls back to :func:`make_mesh_2d` unchanged.
+    Each process's local devices form a contiguous (xi, yi) block (xi as
+    square as possible); the process dimension multiplies into
+    ``process_axis`` (default x) as its OUTER factor.  Single-process
+    falls back to :func:`make_mesh_2d` unchanged.
     """
     from .gemm import make_mesh_2d
 
     nproc = jax.process_count()
     if nproc <= 1:
         return make_mesh_2d(axis_x=axis_x, axis_y=axis_y)
-    dcn_axis = dcn_axis or axis_x
-    from jax.experimental import mesh_utils
-
-    # The DCN "granule" is a TPU slice when the topology has several
-    # (multislice pods expose distinct device.slice_index); otherwise —
-    # multi-process CPU fleets and multi-host single-slice TPUs — the
-    # process is the granule (mesh_utils then groups by process_index).
-    devs = jax.devices()
-    slice_ids = {getattr(d, "slice_index", None) for d in devs}
-    if len(slice_ids) > 1:
-        granules, process_is_granule = len(slice_ids), False
-    else:
-        granules, process_is_granule = nproc, True
-    local = len(devs) // granules
-    # local block (xi, yi), xi as square as possible
+    process_axis = process_axis or axis_x
+    devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
+    local = len(devs) // nproc
     xi = int(np.floor(np.sqrt(local)))
     while local % xi:
         xi -= 1
     yi = local // xi
-    if dcn_axis == axis_x:
-        mesh_shape, dcn_shape = (xi, yi), (granules, 1)
+    blocks = np.array(devs, dtype=object).reshape(nproc, xi, yi)
+    if process_axis == axis_x:
+        arr = blocks.reshape(nproc * xi, yi)
     else:
-        mesh_shape, dcn_shape = (xi, yi), (1, granules)
-    arr = mesh_utils.create_hybrid_device_mesh(
-        mesh_shape,
-        dcn_shape,
-        devices=devs,
-        process_is_granule=process_is_granule,
-    )
+        arr = blocks.transpose(1, 0, 2).reshape(xi, nproc * yi)
     return Mesh(arr, (axis_x, axis_y))
 
 

@@ -10,14 +10,16 @@ reference's scheduling semantics:
     ``i + j <= ns + 1``, emitted in ascending ``i + j`` (most significant
     partial products first) — reference src/config.cu:86-92.
 
-TPU-first addition: pairs with equal ``t = i + j`` share the same
-recombination weight ``2^(2 - b*t)``, so their int32 partial products can
-be summed *in int32 on the MXU output* before any floating-point work.
+Addition over the reference: pairs with equal ``t = i + j`` share the
+same recombination weight ``2^(2 - b*t)``, so their int32 partial
+products can be summed exactly in int32 before any floating-point
+work.
 ``group_schedule`` therefore chunks the schedule into groups of equal
 ``t``, sub-chunked so the int32 accumulation provably cannot overflow.
-This cuts the number of HBM-visible partial-product tensors from
-``ns(ns+1)/2`` to about ``ns`` — a scheduling structure the one-GEMM-per-
-pair reference (gemm.cu:385-403) does not have.
+The floating-point fold then runs once per group instead of once per
+pair, as in the one-GEMM-per-pair reference (gemm.cu:385-403); the
+recombination (ops/recombine.py) keeps one pair product and one group
+total live at a time.
 """
 
 from __future__ import annotations
@@ -129,7 +131,7 @@ def working_set_bytes(
 ) -> int:
     """Approximate device working set for one emulated GEMM.
 
-    TPU analogue of ``calculate_working_memory_size`` /
+    Analogue of ``calculate_working_memory_size`` /
     ``reallocate_working_memory`` (reference config.cu:121-146,
     handle.cu:95-144).  JAX/XLA owns allocation; this is a planning and
     introspection helper (used to pick k-chunking for huge problems).
@@ -164,7 +166,9 @@ def working_set_bytes_chunked(
     )
     per_chunk = factor * (
         num_split * k * w  # B panel int8 digit planes
-        + (12 + 4 + 4 + 8) * m * w  # triple-f32 + E + int32 partial + out
+        # triple-f32 + E + the group's int32 total + one int32 pair
+        # product (ops/recombine.py loops over pairs) + out
+        + (12 + 4 + 4 + 4 + 8) * m * w
     )
     if complex_:
         # the 4-pass engine holds all four (S, E) pass results of the
@@ -173,21 +177,37 @@ def working_set_bytes_chunked(
     return resident + per_chunk
 
 
-#: default HBM budget (MB) for auto-chunk selection: a 16 GB v5e with
-#: headroom for XLA temporaries/fusion slack.  10240 (not 11264) is
-#: measured, not just a fit margin: at 16384^3 ns=9 it selects 8 column
-#: panels over 4, which times FASTER on the chip (7.87 vs 7.75 TFLOPS,
-#: r4; DESIGN §11 measured 7.88-8.30 at 8 panels) while leaving ~6 GB
-#: headroom for whatever else the program holds.  Override with
-#: OZIMMU_HBM_BUDGET_MB (e.g. 90000 on a v5p).
-_DEFAULT_HBM_BUDGET_MB = 10240
+#: share of the device's memory limit (``memory_stats()["bytes_limit"]``)
+#: the working-set models may plan for.  The rest is headroom: the models
+#: count the engine's buffers, not XLA's other temporaries (fusion
+#: outputs, copies) or the caller's own arrays.
+HBM_BUDGET_FRACTION = 0.6
+
+#: budget (MB) on a backend that reports no memory limit — the CPU test
+#: backend.  A test value: small enough that the chunked paths stay
+#: reachable at the sizes the tests plan for (16384^3 chunks under it).
+CPU_TEST_BUDGET_MB = 10240
 
 
 def hbm_budget_bytes() -> int:
+    """Device-memory budget of the working-set models, in bytes.
+
+    ``OZIMMU_HBM_BUDGET_MB`` overrides; otherwise
+    :data:`HBM_BUDGET_FRACTION` of the first device's memory limit, or
+    :data:`CPU_TEST_BUDGET_MB` where the backend reports none.
+    """
     import os
 
-    mb = int(os.environ.get("OZIMMU_HBM_BUDGET_MB", _DEFAULT_HBM_BUDGET_MB))
-    return mb * (1 << 20)
+    import jax
+
+    mb = os.environ.get("OZIMMU_HBM_BUDGET_MB")
+    if mb:
+        return int(mb) * (1 << 20)
+    stats = jax.devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        return CPU_TEST_BUDGET_MB * (1 << 20)
+    return int(limit * HBM_BUDGET_FRACTION)
 
 
 def auto_n_chunks(
@@ -195,7 +215,7 @@ def auto_n_chunks(
 ) -> int:
     """Smallest column-panel count whose peak working set fits the HBM
     budget (1 = unchunked).  Doubling sweep, capped at min(n, 64): beyond
-    that, panels are too narrow to feed the MXU efficiently and the
+    that, panels are too narrow to feed the int8 matmuls efficiently and the
     problem simply does not fit — let the runtime report the OOM.
     """
     budget = hbm_budget_bytes()

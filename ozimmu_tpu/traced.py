@@ -11,26 +11,17 @@ interception, no host round-trips::
     def step(a, b, c):                  # platform f64 arrays
         return traced.gemm(a, b, alpha=2.0, beta=1.0, c=c, num_split=9)
 
-Operands are platform float64 / complex128 arrays (true f64 on CPU,
-double-float on TPU).  Values are peeled into exact IEEE bits
-arithmetically (three round-and-subtract rounds capture everything the
-platform representation holds — intercept.f64_to_f64x_traced), the
-engine computes the exact product of the stored values, and the result
-returns in the platform representation.  On TPU this is strictly more
-accurate than XLA's native emulated-f64 matmul (the contraction itself
-is exact; only the final output conversion rounds).
+Operands are float64 / complex128 arrays.  Their exact IEEE bits are
+taken with one bitcast (intercept.f64_to_f64x_traced), the engine
+computes the product of the stored values, and the result is bitcast
+back — no host round trip, every value exact (subnormals and values
+outside float32's range included).
 
 Semantics match ``mtk::ozimmu::gemm`` (reference src/gemm.cu:524-653):
 ``alpha * a @ b + beta * c`` at a fixed split count.  For data-driven
 split-count selection under jit use the interceptor's AUTO mode
 (ozimmu_tpu.intercept) — candidate pruning and the lax.switch live
 there.
-
-Complex note: the complex path manipulates only real f64 planes on
-device, but the caller's complex128 arrays themselves must be placeable
-on the backend.  Some remote-TPU tunnel setups hang on complex128
-placement; there, keep complex inputs on CPU (the host API
-``ozimmu_tpu.gemm`` splits re/im on the host by design).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Core enums and mode registry for the ozIMMU-TPU engine.
+"""Core enums and mode registry for the Ozaki-scheme engine.
 
 Parity notes (reference: enp1s0/ozIMMU):
   - ``ComputeMode`` mirrors ``mtk::ozimmu::compute_mode_t``
@@ -7,7 +7,7 @@ Parity notes (reference: enp1s0/ozIMMU):
   - ``Operation`` mirrors ``operation_t`` (ozimmu.hpp:12).
   - ``ElementKind`` mirrors ``element_kind_t`` (ozimmu.hpp:42-45).
 
-The TPU build is a brand-new design: modes are data (an enum plus a
+This build is a new design: modes are data (an enum plus a
 ``num_split`` accessor) instead of a C switch ladder
 (reference src/config.cu:4-100, src/handle.cu:146-192).
 """
@@ -63,9 +63,8 @@ class ComputeMode(enum.Enum):
     """Compute mode registry (reference ozimmu.hpp:14-36).
 
     ``FP64_INT8_<ns>`` runs the Ozaki scheme with ``ns`` int8 slices per
-    operand.  ``DGEMM`` is the native-precision fallback (on TPU this is
-    the engine's *exact* software path, since XLA's f64 is itself lossy
-    double-float emulation).  ``SGEMM`` demotes to float32.
+    operand.  ``DGEMM`` is the native IEEE float64 product (cuBLAS on the
+    GPU).  ``SGEMM`` demotes to float32.
     """
 
     SGEMM = "sgemm"

@@ -2,7 +2,7 @@
 
 Two mechanisms, mirroring the reference:
 
-  1. :class:`PhaseProfiler` — the TPU analogue of
+  1. :class:`PhaseProfiler` — the analogue of
      ``cutf::debug::time_breakdown::profiler`` embedded in the handle
      (reference src/handle.hpp:16, used at gemm.cu:38-48,312-313,393-407).
      When enabled, the engine runs in *staged* mode (split / int8 matmul /
@@ -105,13 +105,13 @@ def culip_timer(name: str, sync_fn=None) -> Iterator[None]:
 @contextlib.contextmanager
 def device_trace(log_dir: str) -> Iterator[None]:
     """Capture a ``jax.profiler`` device trace of everything inside the
-    block (XLA/Mosaic kernel timelines, DMA, collectives) — the deep-
+    block (XLA kernel timelines, copies, collectives) — the deep-
     analysis complement to :class:`PhaseProfiler`.  View with
     TensorBoard or Perfetto.
 
     ::
 
-        with oz.device_trace("/tmp/oz_trace"):
+        with oz.device_trace("oz_trace"):
             c = oz.matmul(a, b, mode="fp64_int8_9")
     """
     with jax.profiler.trace(log_dir):

@@ -1,4 +1,4 @@
-"""Multi-process worker: 2D-sharded GEMM on a hybrid (DCN x ICI) mesh.
+"""Multi-process worker: 2D-sharded GEMM on a hybrid (one block per process) mesh.
 
 Launched by tests/test_multiprocess.py as N processes x 4 virtual CPU
 devices each.  Asserts the multi-process sharded result is BITWISE equal

@@ -238,12 +238,10 @@ class TestAutoMode:
 
 
 class TestAutoFallback:
-    """Platform-aware all-rejected fallback (VERDICT r3 item 3).
-
-    On TPU "native f64" is XLA's ~49-bit double-float — LESS accurate
-    than the fp64_int8_18 path AUTO rejects — so the fallback there is
-    the deepest int8 mode; on CPU (true IEEE f64) it stays DGEMM like
-    the reference (split.cu:473-493, gemm.cu:639-645).
+    """All-rejected fallback: native DGEMM on every backend, as in the
+    reference (split.cu:473-493, gemm.cu:639-645) — CPU and GPU both have
+    IEEE f64.  ``OZIMMU_AUTO_FALLBACK=int8_18`` keeps the deepest int8
+    mode instead.
     """
 
     @staticmethod
@@ -263,15 +261,12 @@ class TestAutoFallback:
         a, b = self._rejecting_operands()
         assert oz.auto_mode_select(a, b, threshold=0.0) is oz.ComputeMode.DGEMM
 
-    def test_tpu_backend_falls_back_to_deepest_int8(self, monkeypatch):
+    def test_gpu_backend_falls_back_to_dgemm(self, monkeypatch):
         import jax
 
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         a, b = self._rejecting_operands()
-        assert (
-            oz.auto_mode_select(a, b, threshold=0.0)
-            is oz.ComputeMode.FP64_INT8_18
-        )
+        assert oz.auto_mode_select(a, b, threshold=0.0) is oz.ComputeMode.DGEMM
 
     def test_env_override(self, monkeypatch):
         a, b = self._rejecting_operands()
@@ -281,30 +276,60 @@ class TestAutoFallback:
             is oz.ComputeMode.FP64_INT8_18
         )
         monkeypatch.setenv("OZIMMU_AUTO_FALLBACK", "dgemm")
+        assert oz.auto_mode_select(a, b, threshold=0.0) is oz.ComputeMode.DGEMM
+
+    def test_auto_gemm_on_rejecting_data_is_native(self):
+        """AUTO end to end on data every int8 mode rejects: the result is
+        the native f64 product (one GEMM, not 171 int8 products)."""
+        a, b = self._rejecting_operands(n=192, phi=12.0)
+        h = oz.create()
+        oz.set_auto_mantissa_loss_threshold(h, 0.0)
+        c = oz.gemm(a, b, mode="fp64_int8_auto", handle=h)
+        want = oz.gemm(a, b, mode="dgemm")
+        np.testing.assert_array_equal(c.view(np.uint64), want.view(np.uint64))
+        assert error_metrics(c, a, b)["relative_residual"] < 1e-15
+
+
+class TestNativeOnDevice:
+    """``mode="dgemm"`` runs the native product on the device through
+    ``jnp`` (cuBLAS on the GPU), real and complex, epilogue included."""
+
+    def _spy(self, monkeypatch):
+        from ozimmu_tpu.core import api
+
+        calls = []
+        orig = api._native_gemm
+
+        def spy(*args, **kw):
+            out = orig(*args, **kw)
+            calls.append(out)
+            return out
+
+        monkeypatch.setattr(api, "_native_gemm", spy)
+        return calls
+
+    def test_complex_dgemm_runs_through_jnp(self, monkeypatch):
         import jax
 
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        assert oz.auto_mode_select(a, b, threshold=0.0) is oz.ComputeMode.DGEMM
+        calls = self._spy(monkeypatch)
+        a = generate_input("normal01", (40, 56), seed=30, complex_=True)
+        b = generate_input("normal01", (56, 24), seed=31, complex_=True)
+        c0 = generate_input("normal01", (40, 24), seed=32, complex_=True)
+        got = oz.gemm(a, b, mode="dgemm", alpha=0.5 + 1j, beta=-2j, c=c0)
+        assert len(calls) == 1 and isinstance(calls[0], jax.Array)
+        want = (0.5 + 1j) * (a @ b) - 2j * c0
+        np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13)
 
-    def test_int8_18_beats_tpu_native_accuracy_on_rejecting_data(self):
-        """The policy's justification, measured: on data the estimator
-        rejects, int8_18's residual is still far below what the TPU's
-        double-float native path could deliver (proxy computed here with
-        f32 hi/lo operand splits and OPTIMISTIC exact-f64 accumulation —
-        the real TPU path also rounds the accumulator to ~49 bits)."""
-        a, b = self._rejecting_operands(n=192, phi=12.0)
-        assert oz.auto_mode_select(a, b, threshold=0.0) is oz.ComputeMode.DGEMM
+    def test_real_dgemm_epilogue_on_device(self, monkeypatch):
+        import jax
 
-        c18 = oz.gemm(a, b, mode="fp64_int8_18")
-        r18 = error_metrics(c18, a, b)["relative_residual"]
-
-        ah = a.astype(np.float32).astype(np.float64)
-        al = (a - ah).astype(np.float32).astype(np.float64)
-        bh = b.astype(np.float32).astype(np.float64)
-        bl = (b - bh).astype(np.float32).astype(np.float64)
-        c_df = ah @ bh + ah @ bl + al @ bh
-        r_df = error_metrics(c_df, a, b)["relative_residual"]
-        assert r18 < r_df, (r18, r_df)
+        calls = self._spy(monkeypatch)
+        a = generate_input("normal01", (40, 56), seed=33)
+        b = generate_input("normal01", (56, 24), seed=34)
+        c0 = generate_input("normal01", (40, 24), seed=35)
+        got = oz.gemm(a, b, mode="dgemm", alpha=3.0, beta=-0.5, c=c0)
+        assert len(calls) == 1 and isinstance(calls[0], jax.Array)
+        np.testing.assert_allclose(got, 3.0 * (a @ b) - 0.5 * c0, rtol=1e-13, atol=1e-13)
 
 
 class TestBatched:

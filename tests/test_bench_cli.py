@@ -73,8 +73,10 @@ class TestBenchCli:
         )
         assert m, out
         iters, avg_time, tflops = int(m[1]), float(m[2]), float(m[3])
-        assert iters > 0 and iters % 8 == 0  # real chunk counts
-        assert avg_time > 0
+        assert iters > 0 and avg_time > 0
+        # iters calls of avg_time each filled the 0.5 s window (avg_time
+        # is printed to 5 significant digits)
+        assert iters * avg_time * (1 + 1e-4) >= 0.5
         # consistency: tflops == flops / avg_time (both measured; printed
         # fields are rounded to 4 decimals / 4 significant digits)
         flops = 2 * 64**3
@@ -115,7 +117,7 @@ class TestBenchCli:
     @pytest.mark.slow
     def test_zhpl_device_gen(self, monkeypatch):
         # complex LU benchmark, device-resident with ON-DEVICE operand
-        # generation (the production TPU configuration; OZ_HPL_DEVICE_GEN
+        # generation (the production accelerator configuration; OZ_HPL_DEVICE_GEN
         # forces the path on the CPU backend)
         monkeypatch.setenv("OZ_HPL_DEVICE_GEN", "1")
         rc, out = self._capture(

@@ -5,8 +5,8 @@ Reference (test/main_test.cu:702-746): m,n,k in {1023,1024,1025} x opA/B in
 relative_residual < 1e-15 — 1944 GEMMs on a real GPU.
 
 Here the same structure runs at reduced sizes by default (odd/even/padding
-coverage is what the 1023/1024/1025 triple tests; {127,128,129} exercises
-identical alignment paths in the TPU engine).  Set ``OZ_CI_FULL=1`` to run
+coverage is what the 1023/1024/1025 triple tests; {127,128,129} covers
+the same odd / power-of-two / odd-above pattern).  Set ``OZ_CI_FULL=1`` to run
 the verbatim 1023/1024/1025 matrix through pytest, or use the much faster
 oracle-sharing sweep ``tools/ci_full_runner.py`` (both halves verified
 972/972 with it — see docs/DESIGN.md verification status).

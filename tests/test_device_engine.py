@@ -431,7 +431,7 @@ class TestChunkedStreaming:
         # generous budget -> unchunked
         monkeypatch.setenv("OZIMMU_HBM_BUDGET_MB", "99999999")
         assert auto_n_chunks(4096, 4096, 4096, 9) == 1
-        # 16384^3 ns=9 must auto-chunk within the default v5e budget
+        # 16384^3 ns=9 must auto-chunk within the CPU test budget
         monkeypatch.delenv("OZIMMU_HBM_BUDGET_MB", raising=False)
         nc = auto_n_chunks(16384, 16384, 16384, 9)
         assert nc > 1

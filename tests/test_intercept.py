@@ -34,6 +34,26 @@ class TestTracedConversion:
         back = np.asarray(jax.jit(ozi.f64x_to_f64_traced)(fx))
         np.testing.assert_array_equal(back, x)
 
+    @pytest.mark.parametrize(
+        "values",
+        [
+            [2.0**129, -(2.0**1000), np.finfo(np.float64).max],  # > f32 range
+            [5e-324, -1e-310, 2.0**-1040, 2.0**-1022],  # subnormals, tiny
+            [0.0, -0.0],
+            [np.inf, -np.inf],
+            [np.nan, -np.nan],
+        ],
+        ids=["huge", "subnormal", "signed_zero", "inf", "nan"],
+    )
+    def test_bitcast_roundtrip_exact_under_jit(self, values):
+        x = np.array(values, dtype=np.float64)
+        if np.isnan(x).any():  # a NaN with a payload
+            x = np.concatenate([x, np.array([0x7FF0000000000ABC], np.uint64).view(np.float64)])
+        fx = jax.jit(ozi.f64_to_f64x_traced)(jnp.asarray(x))
+        np.testing.assert_array_equal(fx.to_numpy().view(np.uint64), x.view(np.uint64))
+        back = np.asarray(jax.jit(ozi.f64x_to_f64_traced)(fx))
+        np.testing.assert_array_equal(back.view(np.uint64), x.view(np.uint64))
+
 
 
 

@@ -2,7 +2,7 @@
 
 Launches 2 REAL processes x 4 virtual CPU devices each (the CI-runnable
 stand-in for 2 hosts x 4 chips), connected via jax.distributed, running
-the 2D-sharded DGEMM/ZGEMM on a hybrid (DCN x ICI) mesh.  The worker
+the 2D-sharded DGEMM/ZGEMM on a hybrid (one block per process) mesh.  The worker
 (tests/mp_worker.py) asserts bitwise equality with the single-chip
 engine; this parent only orchestrates and surfaces worker output on
 failure.

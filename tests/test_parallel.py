@@ -396,11 +396,10 @@ class TestLaunchHelpers:
     class _FakeTopoDevice:
         """Wrap a real device, overriding topology attributes.
 
-        Lets the multislice / multi-process granule branches of
-        make_mesh_2d_hybrid run in-process: mesh_utils groups by
-        device.slice_index (or .process_index) and Mesh only needs
-        hashable device-like objects, so a delegating wrapper with a
-        fake attribute exercises the real grouping code end-to-end.
+        Lets the multi-process branch of make_mesh_2d_hybrid run
+        in-process: it groups by device.process_index and Mesh only
+        needs hashable device-like objects, so a delegating wrapper with
+        a fake attribute exercises the real grouping code end-to-end.
         """
 
         def __init__(self, dev, *, slice_index=None, process_index=None):
@@ -430,37 +429,29 @@ class TestLaunchHelpers:
                 and self._fake == getattr(other, "_fake", self._fake)
             )
 
-    def test_hybrid_mesh_multislice_granule(self, monkeypatch):
-        """len(slice_ids) > 1 branch: slices (not processes) are the DCN
-        granule, each slice's devices a contiguous ICI block on the x axis."""
+    def test_hybrid_mesh_process_axis_y(self, monkeypatch):
+        """process_axis="y": each process's devices stay one contiguous
+        block, and the process cut moves to the y axis."""
         from ozimmu_tpu.parallel.launch import make_mesh_2d_hybrid
 
         real = jax.devices()
         if len(real) < 8:
             pytest.skip("needs 8 virtual devices")
         wrapped = [
-            self._FakeTopoDevice(d, slice_index=i // 4)
+            self._FakeTopoDevice(d, process_index=i // 4)
             for i, d in enumerate(real[:8])
         ]
         monkeypatch.setattr(jax, "devices", lambda *a, **k: wrapped)
         monkeypatch.setattr(jax, "process_count", lambda: 2)
 
-        m = make_mesh_2d_hybrid()
-        # 2 slices x 4 local devices, local block 2x2 -> (4, 2) mesh with
-        # the slice dimension OUTER on x
-        assert m.devices.shape == (4, 2)
-        slice_of = np.vectorize(lambda d: d.slice_index)(m.devices)
-        assert (slice_of[:2] == 0).all() and (slice_of[2:] == 1).all()
-
-        # dcn_axis="y": the slice cut moves to the y axis
-        m2 = make_mesh_2d_hybrid(dcn_axis="y")
-        assert m2.devices.shape == (2, 4)
-        slice_of2 = np.vectorize(lambda d: d.slice_index)(m2.devices)
-        assert (slice_of2[:, :2] == 0).all() and (slice_of2[:, 2:] == 1).all()
+        m = make_mesh_2d_hybrid(process_axis="y")
+        assert m.devices.shape == (2, 4)
+        proc_of = np.vectorize(lambda d: d.process_index)(m.devices)
+        assert (proc_of[:, :2] == 0).all() and (proc_of[:, 2:] == 1).all()
 
     def test_hybrid_mesh_process_granule(self, monkeypatch):
-        """Single-slice multi-process branch: the process is the granule
-        (same layout law, grouped by process_index)."""
+        """Multi-process branch: each process's devices form one
+        contiguous block, process dimension outer on x."""
         from ozimmu_tpu.parallel.launch import make_mesh_2d_hybrid
 
         real = jax.devices()
@@ -479,12 +470,12 @@ class TestLaunchHelpers:
         assert (proc_of[:2] == 0).all() and (proc_of[2:] == 1).all()
 
     def test_dcn_axis_for(self):
-        from ozimmu_tpu.parallel.launch import dcn_axis_for
+        from ozimmu_tpu.parallel.launch import process_axis_for
 
-        # x gathers B (bytes ~ n), y gathers A (bytes ~ m): DCN goes to
-        # the axis moving FEWER bytes
-        assert dcn_axis_for(4096, 1024, 2048, 9) == "x"  # n < m
-        assert dcn_axis_for(1024, 4096, 2048, 9) == "y"  # m < n
+        # x gathers B (bytes ~ n), y gathers A (bytes ~ m): the process
+        # cut goes to the axis moving FEWER bytes
+        assert process_axis_for(4096, 1024, 2048, 9) == "x"  # n < m
+        assert process_axis_for(1024, 4096, 2048, 9) == "y"  # m < n
 
     def test_replicated_roundtrip(self, mesh):
         from jax.sharding import PartitionSpec as P

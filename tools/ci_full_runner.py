@@ -3,7 +3,7 @@
 The reference gate (test/main_test.cu:702-746): m,n,k in {1023,1024,1025}
 x opA/B in {N,T} x modes int8_8..16 x {real, complex}, urand01, residual
 < 1e-15 — 1944 GEMMs.  The pytest parametrization recomputes the
-long-double oracle per case (9x per operand set); on this 1-core box that
+long-double oracle per case (9x per operand set); on a few-core host that
 dominates wall time, so this runner sweeps all nine modes per (sizes, ops)
 operand set and scores them against ONE oracle accumulation
 (native.error_metrics_multi_native).
@@ -19,14 +19,13 @@ import sys
 import zlib
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+from ozimmu_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/ozimmu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+enable_compile_cache(min_compile_secs=0.5)
 
 import numpy as np  # noqa: E402
 
@@ -58,8 +57,8 @@ def main(kind: str, logfile: str) -> int:
             if key in done:
                 cases += len(MODES)
                 continue
-            # the in-memory executable cache grows by 9 large unrolled
-            # engine programs per operand set; unbounded it exhausts host
+            # the in-memory executable cache grows by 9 engine programs
+            # per operand set; unbounded it exhausts host
             # RAM after ~100 sets (LLVM "Cannot allocate memory").  The
             # persistent disk cache makes re-tracing cheap.
             ran_sets += 1
@@ -111,6 +110,6 @@ def main(kind: str, logfile: str) -> int:
 if __name__ == "__main__":
     kind = sys.argv[1] if len(sys.argv) > 1 else "complex"
     logfile = (
-        sys.argv[2] if len(sys.argv) > 2 else f"/tmp/ci_full_{kind}_runner.log"
+        sys.argv[2] if len(sys.argv) > 2 else f"ci_full_{kind}_runner.log"
     )
     sys.exit(main(kind, logfile))
